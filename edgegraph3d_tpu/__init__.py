@@ -1,36 +1,37 @@
-"""edgegraph3d_tpu — TPU-native multi-view 3D edge reconstruction.
+"""edgegraph3d_tpu — multi-view 3D edge reconstruction on an accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 abignoli/EdgeGraph3D (WACV 2018): RGB images + binary edge images +
 OpenMVG SfM JSON -> edge-point-augmented OpenMVG JSON.
 
 Design stance (vs. the reference's pointer-graph C++):
   * polyline graphs are fixed-shape padded struct-of-arrays,
-  * matching is dense batched epipolar geometry (vmap / Pallas),
+  * matching is dense batched epipolar geometry (vmap over work items),
   * chain following is `lax.scan` with bounded step counts,
   * dedup is occupancy/interval rasters claimed with scatter-max,
   * refinement is batched 3x3 Gauss-Newton / Schur-complement BA,
   * scale-out is `shard_map` over a `jax.sharding.Mesh` (views/points
-    sharded, `psum`/`all_gather` collectives over ICI).
+    sharded, `psum`/`all_gather` collectives between the devices).
 """
 
 __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU default-precision trap (PROFILE.md, round 4): the TPU's DEFAULT
-# matmul path computes f32 einsums/matmuls through bf16 passes.  For
-# the geometry math here (P entries ~2e3, 1600 px frames) that is
+# Matmul precision pin.  At DEFAULT precision XLA may compute a float32
+# matmul/einsum on a reduced-precision path: on NVIDIA tensor cores that
+# is TF32, a 10-bit mantissa (about three decimal digits).  For the
+# geometry math here (P entries ~2e3, 1600 px frames) that is
 # multi-PIXEL projection error — the extension stage's 2 px consistency
-# gate silently failed on TPU while CPU passed.  Round 4 pinned every
-# jnp.einsum to Precision.HIGHEST per-site; the same bug class remained
-# open in bare `@` matmuls (ops/geometry.py F-table composition, the
-# 8-point rank-2/denormalize products, linalg3's adjugate solve, the BA
-# kernels).  Pinning the PACKAGE-WIDE default closes the class: every
-# dot_general traced by this package's modules — including future code
-# that forgets a per-site pin — runs at full f32 precision.  Hot paths
-# here are gather/elementwise-bound with no MXU matmuls (PROFILE.md
-# roofline), so this costs nothing measurable.
+# gate fails silently while a full-f32 backend passes.  Every
+# jnp.einsum is pinned to Precision.HIGHEST per site; pinning the
+# PACKAGE-WIDE default also covers the bare `@` matmuls (ops/geometry.py
+# F-table composition, the 8-point rank-2/denormalize products,
+# linalg3's adjugate solve, the BA kernels) and future code that forgets
+# a per-site pin.  The hot paths are gather/elementwise-bound with tiny
+# contractions, so full f32 should cost little; unmeasured on a GPU.
+# The one deliberate exception is the stage-1 similarity kernel
+# (matching/polyline_stages.py), whose products only rank graph edges.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from edgegraph3d_tpu.config import EdgeGraphConfig

@@ -16,7 +16,7 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="EdgeGraph3D",
-        description="TPU-native multi-view 3D edge reconstruction")
+        description="multi-view 3D edge reconstruction")
     ap.add_argument("-i", dest="debug_images", action="store_true",
                     help="output debug images")
     ap.add_argument("images_folder")
@@ -40,6 +40,9 @@ def main(argv=None):
                     "the reference's point-only refinement, "
                     "gauss_newton.cpp:136-178)")
     args = ap.parse_args(argv)
+
+    from edgegraph3d_tpu import runtime
+    runtime.cli_start()
 
     from edgegraph3d_tpu.config import DEFAULT_CONFIG
     from edgegraph3d_tpu.pipeline import edge_matching

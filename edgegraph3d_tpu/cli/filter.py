@@ -24,6 +24,9 @@ def main(argv=None):
     ap.add_argument("output_json")
     args = ap.parse_args(argv)
 
+    from edgegraph3d_tpu import runtime
+    runtime.cli_start()
+
     from edgegraph3d_tpu.core import sfm as sfm_io
     from edgegraph3d_tpu.filtering.outliers import filter_sfm_data
 

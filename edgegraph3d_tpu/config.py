@@ -71,7 +71,7 @@ class EdgeGraphConfig:
     #: a new plg point must survive this many following steps
     #: (ref: plg_matching.cpp:1276-1287, 2).
     new_point_min_steps: int = 2
-    #: max following steps per sweep (TPU-native bound replacing the
+    #: max following steps per sweep (JAX-native bound replacing the
     #: reference's unbounded while loop, plg_matching.cpp:765-795).
     max_follow_steps: int = 256
     #: GN acceptance during matching (ref: triangulation.cpp:168, MSE < 9 px^2).
@@ -156,8 +156,8 @@ class EdgeGraphConfig:
     #: all points free), run after reconstruction and before the
     #: outlier filter.  0 disables.  Generalizes the reference's
     #: per-point-only refinement (gauss_newton.cpp:136-178) to the
-    #: pod-level joint solve (SURVEY §2.10 item 3); the A/B benefit is
-    #: measured in tests/test_ba_pipeline.py and PROFILE.md.
+    #: multi-device joint solve (SURVEY §2.10 item 3); the A/B benefit
+    #: is measured in tests/test_ba_pipeline.py.
     ba_steps: int = 0
     #: LM damping for the joint BA stage.
     ba_damping: float = 1e-4
@@ -183,7 +183,7 @@ class EdgeGraphConfig:
     #: (ref: PolyLineGraph3D::fragment, polyline_graph_3d.cpp:99-122).
     output_3d_fragment_maxlen: float | None = None
 
-    # ---- padding budgets (TPU-native: fixed shapes + masks) -------------
+    # ---- padding budgets (JAX-native: fixed shapes + masks) -------------
     #: sized by tools/capacity_audit.py on the full real dtu006 scene
     #: (49 views @1600x1200): worst view traces 5410 chains, so 8192
     #: gives zero drops with 1.5x headroom (2048 dropped >50%); chain
@@ -202,7 +202,7 @@ class EdgeGraphConfig:
     #: (interval claims dedup the overlap); the Louvain arm runs the
     #: deterministic batch-parallel local-moving pass (grappolo's own
     #: parallel design) above communities.LOUVAIN_MAX_NODES, so the
-    #: union holds at pod scale.  Also "louvain" / "lp" / "lp+merge" /
+    #: union holds at multi-device scale.  Also "louvain" / "lp" / "lp+merge" /
     #: "union".  Measured against the grappolo objective in
     #: COMMUNITIES.md + tests/test_communities.py: no single
     #: partitioner dominates (LP collapses some scenes, Louvain's
@@ -222,7 +222,7 @@ class EdgeGraphConfig:
     #: loop per chunk — faster at single-chip scale, claims live next
     #: to the host assembly code) or "device" (fixpoint kernel in
     #: matching/claiming_device.py whose owner raster min-reduces over
-    #: the mesh with lax.pmin — the pod-scale collective interval
+    #: the mesh with lax.pmin — the multi-device collective interval
     #: merge, SURVEY §2.10 item 2; bit-identical accept sets, asserted
     #: by tests/test_claiming.py).
     claiming_backend: str = "host"

@@ -1,6 +1,6 @@
 """2D density filter: one edge-point per 3 px cell per view.
 
-TPU-native equivalent of the reference's sequential occupancy-bitmap
+JAX-native equivalent of the reference's sequential occupancy-bitmap
 pass (reference: src/edgegraph3d/filtering/filtering_close_plgps.cpp:75-124):
 a point is kept iff >= 1 of its 2D observations lands in a cell not yet
 occupied by an earlier kept point; kept points mark all their cells.
@@ -47,7 +47,7 @@ def density_filter(obs_xy: np.ndarray, obs_mask: np.ndarray,
         # reproduced; at single-host point counts it beats the claim
         # rounds' per-round raster scans by an order of magnitude.
         # The round-based path below remains the formulation that
-        # parallelizes (pod-scale point sets).
+        # parallelizes (multi-device point sets).
         occ = np.zeros(V * GH * GW, dtype=bool)
         keep = np.zeros(N, dtype=bool)
         for i in range(N):

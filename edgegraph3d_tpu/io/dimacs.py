@@ -4,7 +4,7 @@ The reference exchanges its polyline-similarity graph with grappolo
 through DIMACS shortest-path files: `p sp N M` header and 1-indexed
 `a u v w` arc lines (reference:
 src/edgegraph3d/plgs/graph_adjacency_set_undirected_no_type_weighted.cpp:38-74,
-consumed by external/grappolo-05-2014 with ftype 2).  The TPU engine
+consumed by external/grappolo-05-2014 with ftype 2).  This engine
 clusters on-device (matching/communities.py) and never round-trips
 through files, but this module keeps the format available for
 interop/debugging against external Louvain tools.

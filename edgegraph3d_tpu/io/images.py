@@ -4,6 +4,9 @@ Replaces the reference's OpenCV imread path (reference:
 src/edgegraph3d/utils/edge_graph_3d_utilities.cpp:285-344 parse_images).
 Edge images are white-edge-on-black binary maps
 (reference: global_defines.hpp EDGE_COLOR white).
+
+PNGs are decoded by io/png.py; the other extensions need Pillow, which
+is imported only for them.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import os
 import re
 
 import numpy as np
-from PIL import Image
+
+from edgegraph3d_tpu.io.png import read_png
 
 
 def _numeric_key(name: str):
@@ -27,14 +31,42 @@ def list_image_files(folder: str) -> list[str]:
     return [os.path.join(folder, n) for n in sorted(names, key=_numeric_key)]
 
 
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    """ITU-R 601-2 luma in the fixed-point form Pillow's "L" uses."""
+    c = rgb.astype(np.uint32)
+    return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+def _load(path: str, mode: str) -> np.ndarray:
+    """Image at `path` as uint8 grey [H,W] (mode "L") or RGB [H,W,3]."""
+    if os.path.splitext(path)[1].lower() != ".png":
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ImportError(
+                f"reading {path!r} needs Pillow, which is not installed; "
+                "convert the image to PNG") from None
+        return np.asarray(Image.open(path).convert(mode))
+    a = read_png(path)
+    if a.dtype == np.uint16:
+        a = (a >> 8).astype(np.uint8)
+    if a.ndim == 3 and a.shape[2] == 2:      # grey + alpha
+        a = a[..., 0]
+    if a.ndim == 3:                          # RGB or RGBA
+        rgb = a[..., :3]
+        return _luma(rgb) if mode == "L" else rgb
+    return a if mode == "L" else np.repeat(a[..., None], 3, axis=2)
+
+
 def load_edge_image(path: str, threshold: int = 127) -> np.ndarray:
     """Load a binary edge image -> uint8 {0,255} [H,W]."""
-    img = np.asarray(Image.open(path).convert("L"))
+    img = _load(path, "L")
     return np.where(img > threshold, 255, 0).astype(np.uint8)
 
 
 def load_rgb_image(path: str) -> np.ndarray:
-    return np.asarray(Image.open(path).convert("RGB"))
+    return _load(path, "RGB")
 
 
 def load_edge_images(folder: str, image_paths: list[str] | None = None,

@@ -1,6 +1,6 @@
 """Device-side interval claiming: the collective dedup layer.
 
-TPU-native upgrade of the host-side `MatchesManager.resolve_and_claim`
+JAX-native upgrade of the host-side `MatchesManager.resolve_and_claim`
 (matches.py — itself the parallel-deterministic equivalent of the
 reference's sequential interval skip + lock-guarded interval marking,
 reference: src/edgegraph3d/matching/plg_matching/polyline_matching.cpp:173-190
@@ -30,7 +30,8 @@ rejection is re-accepted.  The loop converges to the unique sequential
 solution in at most chain-depth rounds (a lexicographic greedy
 independent set).  In the sharded variant the seed axis is split over
 the mesh and the owner raster is min-reduced with `lax.pmin` every
-round — the cross-device interval merge over ICI.
+round — the cross-device interval merge (NCCL over NVLink on
+GPUs).
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def sharded_resolve_and_claim(mesh, owner0, success, index, cams, pl,
                               skip_start_check: bool = False,
                               max_rounds: int = 64):
     """Seed axis sharded over the mesh; the owner raster is min-reduced
-    across devices every fixpoint round (`lax.pmin` over ICI) — the
+    across devices every fixpoint round (`lax.pmin` between devices) — the
     cross-device interval merge of SURVEY §2.10 item 2.  Inputs padded
     to a device multiple with success=False rows."""
     from jax import shard_map

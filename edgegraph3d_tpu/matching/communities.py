@@ -1,6 +1,6 @@
 """Device-side community detection: weighted label propagation.
 
-TPU-native replacement for the reference's grappolo (PNNL parallel
+JAX-native replacement for the reference's grappolo (PNNL parallel
 Louvain) invoked through a DIMACS file round-trip (reference:
 external/grappolo-05-2014/driverForGraphClustering_edited.cpp:50-170,
 src/edgegraph3d/matching/polyline_matching/community_detection_interface.cpp:42-73,
@@ -82,7 +82,7 @@ def label_propagation(edges: jnp.ndarray, weights: jnp.ndarray,
     scatter-min (tie-break toward the smaller label).  O(E log E) per
     round above the dense bound, no packed sort key (the round-4
     int32 key capped n_nodes at ~46k; lexsort removes the limit for
-    pod-scale graphs).
+    multi-device-scale graphs).
     """
     if n_nodes <= LP_DENSE_MAX_NODES:
         return _label_propagation_dense(edges, weights, n_nodes,
@@ -365,7 +365,7 @@ def louvain_host(edges: np.ndarray, weights: np.ndarray,
     if parallel is None:
         # node count drives the sequential pass's Python-loop cost
         # (measured: 6.8 s at 12k nodes / 3M edges — fine; it is the
-        # O(n) per-sweep node loop that dies at pod scale, not E)
+        # O(n) per-sweep node loop that dies at multi-device scale, not E)
         parallel = n_nodes > LOUVAIN_MAX_NODES
     total_map = np.arange(n_nodes)
     n = n_nodes
@@ -462,8 +462,8 @@ def communities_from_edges(edges: np.ndarray, weights: np.ndarray,
       * "louvain"  — host Louvain (grappolo-quality partition;
         sequential local moving on small graphs, deterministic
         batch-parallel — grappolo's own parallel design — above
-        LOUVAIN_MAX_NODES, so the arm survives pod-scale graphs)
-      * "lp"       — device label propagation (scales to pod-size
+        LOUVAIN_MAX_NODES, so the arm survives multi-device-scale graphs)
+      * "lp"       — device label propagation (scales to multi-device-size
         graphs; over-merges on ~1/4 of real similarity graphs, but its
         raw partition WINS on some cluttered scenes — COMMUNITIES.md
         scene 0: raw-LP coverage 0.724 vs union's 0.591)

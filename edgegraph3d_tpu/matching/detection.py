@@ -1,6 +1,6 @@
 """Nearby-polyline and epipolar-correspondence detection.
 
-TPU-native replacement for the reference's `PLGEdgeManager`
+JAX-native replacement for the reference's `PLGEdgeManager`
 (reference: src/edgegraph3d/edge_managers/plg_edge_manager.cpp:46-300):
 
   * detect_starting_intersections — closest points of nearby polylines

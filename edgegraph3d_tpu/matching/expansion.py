@@ -1,6 +1,6 @@
 """Chain-aware all-view expansion with Gauss-Newton re-validation.
 
-TPU-native redesign of the reference's expansion of swept 3D chains to
+JAX-native redesign of the reference's expansion of swept 3D chains to
 every other view (reference:
 src/edgegraph3d/utils/geometry/triangulation.cpp:742-919
 `expand_allpoints_to_other_view_using_plmap` calling
@@ -27,7 +27,7 @@ re-validates every added observation through
          outright (plg_matching.cpp:1370-1376)
       4. re-anchor after the matched interval and repeat
 
-  TPU-native formulation (parallel over chains x chain points,
+  JAX-native formulation (parallel over chains x chain points,
   sequential only over views):
       1. candidates for ALL chain points at once: closest polyline point
          within 4 px via the segment grid (the reference's plmap anchor
@@ -333,13 +333,12 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     drive_h = jnp.concatenate(
         [obs3[:, 0, :], jnp.ones((K, 1), dtype)], axis=-1)
 
-    # observation buffers in TILE-EXACT layouts: camera INDICES (one
-    # i32 per slot) instead of materialized [K, Omax, 3, 4] matrices
-    # (that form tiles T(4,128) = 42x padding — measured 26 GB at
-    # K=262k, V=49), and split x/y coordinate planes instead of a
-    # trailing dim of 2 (which tiles to 128 lanes).  The GN consumes
-    # the SoA form directly (gauss_newton_soa), gathering each P entry
-    # as a [K] vector from the tiny [V] table.
+    # compact observation buffers: camera INDICES (one i32 per slot)
+    # instead of materialized [K, Omax, 3, 4] matrices (36 floats per
+    # slot, with tiny minor dims that a tiled layout pads), and split
+    # x/y coordinate planes instead of a trailing dim of 2.  The GN
+    # consumes the SoA form directly (gauss_newton_soa), gathering each
+    # P entry as a [K] vector from the tiny [V] table.
     cam_buf = jnp.full((K, Omax), 0, jnp.int32).at[:, :3].set(cam_rows)
     obs_x_buf = jnp.zeros((K, Omax), dtype).at[:, :3].set(obs3[..., 0])
     obs_y_buf = jnp.zeros((K, Omax), dtype).at[:, :3].set(obs3[..., 1])

@@ -1,6 +1,6 @@
 """PLG following: sweeping 3D edge chains from seed matches.
 
-TPU-native redesign of the reference's recursive chain following
+JAX-native redesign of the reference's recursive chain following
 (reference: src/edgegraph3d/matching/plg_matching/plg_matching.cpp):
 
   * one step = advance 10 px on the driving view, intersect the epipolar
@@ -242,12 +242,11 @@ def follow_seeds(seeds: SeedTuple, plg_coords: jnp.ndarray,
     """
     S = seeds.cams.shape[0]
     # flat one-row-per-polyline coordinate layout [V*P, 2L] (x block
-    # then y block): seed gathers pull one CONTIGUOUS 128-lane row per
-    # (seed, tuple view) instead of a stride-2 [L,2] window, and the
-    # loop-resident tensor tiles exactly (the nested [S,3,L,2] form
-    # pads its trailing dim 2 to 128 lanes — 64x).  PROFILE.md layout
-    # probe: 1.35x on this access pattern.  The repack itself is one
-    # linear pass, amortized across the whole walk.
+    # then y block): seed gathers pull one CONTIGUOUS row per (seed,
+    # tuple view) instead of a stride-2 [L,2] window, and the
+    # loop-resident tensor has no trailing dim of 2.  The repack itself
+    # is one linear pass, amortized across the whole walk.  A layout
+    # choice, unmeasured on a GPU.
     V, P_cnt, L, _ = plg_coords.shape
     packed = jnp.concatenate(
         [plg_coords[..., 0], plg_coords[..., 1]],

@@ -1,6 +1,6 @@
 """Uniform segment grids over the image plane.
 
-TPU-native replacement for the reference's `PolyLine2DMap[Search]`
+JAX-native replacement for the reference's `PolyLine2DMap[Search]`
 (reference: src/edgegraph3d/matching/plg_matching/polyLine_2d_map.cpp:40-58,
 polyLine_2d_map_search.cpp:46-170): a per-view raster of grid cells, each
 holding up to `capacity` (polyline_id, segment_idx) entries.  Unlike the
@@ -132,8 +132,8 @@ def point_segment_distance(pt: jnp.ndarray, a: jnp.ndarray,
                            b: jnp.ndarray):
     """pt [2], a/b [...,2] -> (dist, t, proj).
 
-    Component math: the trailing coordinate dim of 2 tiles to 128 TPU
-    lanes (see ops/triangulation.py gauss_newton_batched)."""
+    Component math: x and y as separate planes instead of a trailing
+    dim of 2 (see ops/triangulation.py gauss_newton_batched)."""
     ax, ay = a[..., 0], a[..., 1]
     ux = b[..., 0] - ax
     uy = b[..., 1] - ay

@@ -1,6 +1,6 @@
 """Matched-interval bookkeeping: the dedup layer.
 
-TPU-native replacement for the reference's lock-guarded
+JAX-native replacement for the reference's lock-guarded
 `PLGMatchesManager` (reference: src/edgegraph3d/matching/plg_matching/
 plg_matches_manager.cpp:54-195 — per-(plg, polyline) sorted interval
 sets with `is_matched` queries and `add_matched_3dsegment` updates under

@@ -1,6 +1,6 @@
 """Segment-soup edge detection (the legacy edge-manager family).
 
-TPU-native replacement for the reference's segment-based edge managers
+JAX-native replacement for the reference's segment-based edge managers
 (reference: include/edgegraph3d/edge_managers/segment_edge_manager.hpp:56-91
 and src/edgegraph3d/edge_managers/{segment_edge_manager.cpp,
 input_segments_edge_manager.cpp, segmented_edge_images_edge_manager.cpp,

@@ -12,6 +12,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import warnings
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -22,17 +23,28 @@ _SO = os.path.join(os.path.dirname(__file__), "_extraction.so")
 
 
 def _build() -> str | None:
+    """Compile the library if it is missing or stale.  A failed build
+    warns once with the compiler's output: extraction then falls back
+    to the Python twin, whose chains differ (PARITY_EXTRACTION.md)."""
+    if (os.path.exists(_SO)
+            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
+        return _SO
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+           "-std=c++17", _SRC, "-o", _SO + ".tmp"]
     try:
-        if (os.path.exists(_SO)
-                and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
-            return _SO
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", _SRC, "-o", _SO + ".tmp"]
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        subprocess.run(cmd, check=True, capture_output=True, text=True,
+                       timeout=120)
+    except subprocess.CalledProcessError as e:
+        detail = e.stderr.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        detail = str(e)
+    else:
         os.replace(_SO + ".tmp", _SO)
         return _SO
-    except Exception:
-        return None
+    warnings.warn("native extraction build failed; using the Python "
+                  f"extraction twin instead:\n{detail}", RuntimeWarning,
+                  stacklevel=3)
+    return None
 
 
 def get_extraction_lib():
@@ -58,6 +70,8 @@ def get_extraction_lib():
                 ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ]
             _LIB = lib
-        except Exception:
+        except (OSError, AttributeError) as e:
+            warnings.warn(f"native extraction library failed to load: {e}",
+                          RuntimeWarning, stacklevel=2)
             _LIB = None
         return _LIB

@@ -1,11 +1,11 @@
 """Joint bundle adjustment over edge-point reprojection residuals.
 
-This is the pod-level generalization of the reference's independent
+This is the multi-device generalization of the reference's independent
 per-point Gauss-Newton (reference: src/edgegraph3d/filtering/
 gauss_newton.cpp:83-178 refines points only, cameras fixed): a joint
 Levenberg-Marquardt step over camera poses AND points, solved by
 Schur-complement reduction — the BASELINE.json north-star "distributed
-BA solved via Schur-complement reduction over ICI collectives (psum of
+BA solved via Schur-complement reduction over collectives (psum of
 per-view Hessian blocks)".
 
 Structure per step (standard sparse BA normal equations):
@@ -17,7 +17,7 @@ Structure per step (standard sparse BA normal equations):
 
 The sum over points i is the only cross-device reduction: with points
 sharded over a mesh axis, S and rhs are formed locally and `psum`'d over
-ICI (see parallel/sharded.py); the tiny 6V system is solved replicated,
+the mesh (see parallel/sharded.py); the tiny 6V system is solved replicated,
 and point updates stay local.  Camera poses use a left-multiplicative
 se(3) perturbation; per-observation Jacobians come from `jax.jacfwd`
 (exact, batched by vmap).

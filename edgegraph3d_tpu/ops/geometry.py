@@ -1,6 +1,6 @@
 """Batched multi-view geometry kernels (projection, F-matrices, epipolar).
 
-TPU-native replacement for the reference's OpenCV-based geometry layer
+JAX-native replacement for the reference's OpenCV-based geometry layer
 (reference: src/edgegraph3d/utils/geometry/geometric_utilities.cpp):
   * projection / reprojection            — dense einsums
   * fundamental matrices                 — exact from cameras (closed form)
@@ -12,7 +12,7 @@ TPU-native replacement for the reference's OpenCV-based geometry layer
                                             geometric_utilities.cpp:824-843)
 
 Everything is shape-polymorphic over leading batch dims and dtype-
-polymorphic (f32 on TPU, f64 for CPU parity tests).  Invalid results are
+polymorphic (f32 in production, f64 for CPU parity tests).  Invalid results are
 flagged with boolean masks instead of the reference's 1x1 "invalid Mat"
 sentinel (geometric_utilities.cpp:780).
 """
@@ -24,10 +24,11 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-# Tiny 3x3/3x4 contractions: force true-f32 accumulation.  On TPU the
-# default f32 matmul path goes through bf16 MXU passes, which costs
-# ~1e-3 relative error — unacceptable for pixel-accurate geometry.
-# These contractions are VPU-sized anyway; batch is the parallel axis.
+# Tiny 3x3/3x4 contractions: force true-f32 accumulation.  At default
+# precision an f32 contraction may run on a reduced-precision path (TF32
+# on NVIDIA tensor cores), ~1e-3 relative error — unacceptable for
+# pixel-accurate geometry.  These contractions are tiny elementwise
+# work anyway; batch is the parallel axis.
 _einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -1,10 +1,11 @@
-"""Closed-form small-matrix linear algebra for TPU.
+"""Closed-form small-matrix linear algebra for huge batches.
 
 `jnp.linalg.{det,solve,inv,eigh}` on batched 3x3/4x4 matrices lower to
-LU/QR factorization loops that run orders of magnitude slower on TPU
-than closed-form arithmetic; every hot path here (per-point Gauss-Newton
-Hessians, DLT normal matrices, BA point blocks) is a huge batch of tiny
-matrices, which maps perfectly onto the VPU as elementwise math.
+batched LU/QR factorization loops; every hot path here (per-point
+Gauss-Newton Hessians, DLT normal matrices, BA point blocks) is a huge
+batch of tiny matrices, which closed-form arithmetic turns into plain
+elementwise math over the batch.  A design choice, unmeasured against
+the library solvers on a GPU.
 
 Provides: det3, adjugate3, inv3, solve3 (Cramer/adjugate), and
 smallest_eigvec4 (shifted power iteration for the homogeneous-DLT
@@ -58,7 +59,7 @@ def solve3(A: jnp.ndarray, b: jnp.ndarray, det_eps: float = 1e-20):
 def cholesky4(A: jnp.ndarray, eps: float = 1e-30):
     """Closed-form Cholesky of SPD [...,4,4] -> lower factor entries.
 
-    Scalar VPU arithmetic; returns the 10 lower-triangular entries."""
+    Elementwise arithmetic; returns the 10 lower-triangular entries."""
     sq = lambda x: jnp.sqrt(jnp.maximum(x, eps))
     a = A
     L11 = sq(a[..., 0, 0])
@@ -95,8 +96,8 @@ def smallest_eigvec4(A: jnp.ndarray, n_iters: int = 4) -> jnp.ndarray:
 
     Inverse iteration with a tiny relative ridge: x <- (A + eps I)^-1 x.
     Convergence ratio (lam_min+eps)/(lam_2+eps) makes 3-4 rounds plenty;
-    the solve is a closed-form 4x4 Cholesky — all VPU scalar math,
-    replacing `jnp.linalg.eigh`'s slow batched QR loops on TPU."""
+    the solve is a closed-form 4x4 Cholesky — all elementwise math,
+    in place of `jnp.linalg.eigh`'s batched QR loops."""
     tr = jnp.trace(A, axis1=-2, axis2=-1)
     eps = (1e-7 * tr + 1e-30)[..., None, None]
     Ar = A + eps * jnp.eye(4, dtype=A.dtype)

@@ -1,6 +1,6 @@
 """Polyline walk primitives as vectorized masked-array ops.
 
-TPU-native replacement for the reference's sequential per-segment walks
+JAX-native replacement for the reference's sequential per-segment walks
 (reference: src/edgegraph3d/plgs/polyline_graph_2d.cpp:560-790 —
 next_pl_point_by_distance, next_pl_point_by_line_intersection[_bounded_
 distance], split_equal_size_intervals; and the segment/line intersection
@@ -96,12 +96,11 @@ def advance_by_distance_xy(px: jnp.ndarray, py: jnp.ndarray,
     current point (parity: next_pl_point_by_distance — the first circle
     crossing in walk order; reaching the extreme first -> flag).
 
-    Component (x/y) math on [L] vectors: a trailing coordinate dim of 2
-    tiles to 128 TPU lanes and wastes 64x the VPU (see
-    gauss_newton_batched).  The px/py interface lets hot callers gather
-    polylines in the flat [row, 2L] layout (x block then y block) —
-    contiguous 128-lane rows instead of the stride-2 nested [L,2] form
-    (PROFILE.md layout probe: 1.35x on the walk's gather pattern)."""
+    Component (x/y) math on [L] vectors rather than a trailing
+    coordinate dim of 2 (see gauss_newton_batched).  The px/py
+    interface lets hot callers gather polylines in the flat [row, 2L]
+    layout (x block then y block) — contiguous rows instead of the
+    stride-2 nested [L,2] form.  A layout choice, unmeasured on a GPU."""
     L = px.shape[0]
     cx, cy = plp.xy[0], plp.xy[1]
     d2 = (px - cx) ** 2 + (py - cy) ** 2                       # [L]

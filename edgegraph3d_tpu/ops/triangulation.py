@@ -1,6 +1,6 @@
 """Triangulation and batched per-point Gauss-Newton refinement.
 
-TPU-native replacement for the reference's per-point OpenCV pipeline
+JAX-native replacement for the reference's per-point OpenCV pipeline
 (reference: src/edgegraph3d/utils/geometry/triangulation.cpp):
   * init by two-view DLT on the (min-id, max-id) camera pair
     (parity: em_estimate3Dpositions, triangulation.cpp:178-323 —
@@ -42,11 +42,11 @@ def p_soa(P_obs: jnp.ndarray) -> list:
     [N] component vectors (the internal SoA layout of every solver in
     this module).
 
-    WHY callers want this form: a GATHERED [N,3,4] f32 on TPU tiles to
-    T(4,128) — 43x padding, 51 GB at N=8.4M (measured; a broadcast of
-    the same shape fuses for free, which is why the padded full-width
-    paths never hit it).  Compacted paths gather the 36 entries as
-    separate [N] vectors instead."""
+    WHY callers want this form: a materialized GATHERED [N,3,4] f32
+    keeps tiny minor dims that a tiled memory layout pads heavily (a
+    broadcast of the same shape fuses for free, which is why the padded
+    full-width paths never hit it).  Compacted paths gather the 36
+    entries as separate [N] vectors instead; unmeasured on a GPU."""
     Pc = jnp.moveaxis(P_obs, 0, -1)                 # [O,3,4,N]
     O = P_obs.shape[1]
     return [[[Pc[o, r, c] for c in range(4)] for r in range(3)]
@@ -191,13 +191,12 @@ def gauss_newton_soa(
     mse < accept_mse.  `mse` is sum of squared pixel residuals / (2 *
     n_obs).
 
-    TPU layout: STRUCTURE-OF-ARRAYS.  Tensors shaped [N, O, 3, 4] with
-    tiny trailing dims waste almost all VPU lanes (the two minor dims
-    tile to (8, 128)); plain [N] component vectors make every iteration
-    pure [N]-lane elementwise math — measured ~100x faster per
-    iteration at N ~ 5e5 than the [N,O,2,3] einsum formulation on a
-    v5e.  (See p_soa: gathered compacted paths also NEED this form —
-    a materialized gathered [N,3,4] tiles at 43x padding.)
+    Layout: STRUCTURE-OF-ARRAYS.  Plain [N] component vectors instead
+    of [N, O, 3, 4] tensors with tiny trailing dims make every
+    iteration pure elementwise math over the batch, with no padded
+    minor dims and no tiny contractions.  (See p_soa: gathered
+    compacted paths also need this form.)  A design choice; its gain
+    over the einsum formulation is unmeasured on a GPU.
     """
     # common promotion: under x64 the cameras/observations arrive f64
     # while seeds may still be f32 host arrays — without this the
@@ -388,10 +387,10 @@ def triangulate_view_combinations(
     once and the winner is chosen lexicographically by (max size, then
     min mse) before the same greedy re-add. On ambiguous inputs the two
     can pick different (point, used-set) pairs; batching all subsets is
-    the TPU-shaped formulation and the larger-first criterion dominates
+    the batched formulation and the larger-first criterion dominates
     the reference's minimal-subset pick in observation count.
 
-    TPU-native: all 2^O subset masks are a static tensor; every subset
+    JAX-native: all 2^O subset masks are a static tensor; every subset
     is solved in ONE batched GN (subsets = the batch dimension) and the
     greedy re-add is a static loop of O batched single-observation adds.
     To bound the 2^O blowup, at most `max_subset_views` observations

@@ -1,16 +1,16 @@
-"""Multi-host launch: `jax.distributed` over DCN.
+"""Multi-host launch: `jax.distributed` across processes.
 
 The reference is single-process shared memory (SURVEY.md §5
-"Distributed communication backend: none"); this is the TPU-native
+"Distributed communication backend: none"); this is the JAX-native
 scale-out layer (SURVEY §2.10 item 4): each host runs one process,
-`jax.distributed.initialize` wires the cluster over DCN, and the
-global mesh spans every host's local devices.  Work items (refpoints /
-seeds / chains / 3D points) are sharded over the global mesh exactly
-as in parallel/sharded.py — within a host the collectives ride ICI,
-across hosts DCN; the only cross-device traffic in the whole engine is
-the `psum` of Schur blocks in the distributed BA.
+`jax.distributed.initialize` wires the cluster, and the global mesh
+spans every host's local devices.  Work items (refpoints / seeds /
+chains / 3D points) are sharded over the global mesh exactly as in
+parallel/sharded.py — within a host the collectives ride NVLink (NCCL),
+across hosts the network; the only cross-device traffic in the whole
+engine is the `psum` of Schur blocks in the distributed BA.
 
-Tested without a pod by N local processes on the CPU backend
+Tested without a cluster by N local processes on the CPU backend
 (tests/test_multihost.py), each exposing
 `--xla_force_host_platform_device_count` virtual devices.
 """
@@ -24,9 +24,9 @@ def initialize(coordinator_address: str, num_processes: int,
                process_id: int, local_device_count: int | None = None):
     """Join the jax.distributed cluster (idempotent per process).
 
-    On TPU pods the arguments are inferred from the environment and
-    `coordinator_address=None` suffices; on CPU/GPU clusters pass them
-    explicitly.  `local_device_count` forces the CPU backend to expose
+    Pass the arguments explicitly (`coordinator_address` as
+    "host:port"): nothing in a plain GPU or CPU cluster lets JAX infer
+    them.  `local_device_count` forces the CPU backend to expose
     that many virtual devices (test rigs)."""
     import os
 
@@ -82,7 +82,8 @@ def replicate_global(mesh, host_array: np.ndarray):
 def gather_to_host(arr) -> np.ndarray:
     """Fetch a (possibly cross-process) sharded array to every host."""
     import jax
+    from jax.experimental import multihost_utils
 
     return np.asarray(jax.device_get(
-        jax.experimental.multihost_utils.process_allgather(arr)
+        multihost_utils.process_allgather(arr)
         if arr.is_fully_addressable is False else arr))

@@ -4,11 +4,13 @@ The reference's only parallelism is shared-memory OpenMP loops over
 refpoints/PLG ids with one global lock (reference:
 include/edgegraph3d/utils/globals/global_switches.hpp:37 SWITCH_RUNPARALLEL,
 plg_matching_from_refpoints.cpp:89-95, plg_matches_manager.cpp:42).
-The TPU-native replacement is a 1-D `jax.sharding.Mesh` over a "shard"
+The JAX-native replacement is a 1-D `jax.sharding.Mesh` over a "shard"
 axis: work items (refpoints, seeds, 3D points) are sharded across
-devices, per-view PLG/grid tensors are replicated, and reductions ride
-ICI collectives (`psum` in parallel/sharded.py).  Multi-host scale-out
-uses the same mesh spanning `jax.distributed` processes over DCN.
+devices, per-view PLG/grid tensors are replicated, and reductions are
+collectives (`psum` in parallel/sharded.py; NCCL over NVLink between
+the GPUs of one host).  Multi-host scale-out uses the same mesh
+spanning `jax.distributed` processes.  The mesh is 1-D because the
+algorithm's work axis is: it follows no interconnect topology.
 """
 
 from __future__ import annotations

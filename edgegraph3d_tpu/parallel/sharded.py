@@ -4,12 +4,12 @@ The distributed Gauss-Newton / bundle-adjustment design (SURVEY.md §2.10
 item 3, BASELINE.json north star): 3D points and their observations are
 sharded over the mesh's work axis; each device builds its local Schur
 pieces; the 6Vx6V camera system and the scalar residual are reduced with
-`jax.lax.psum` over ICI; the tiny camera solve is replicated; point
+`jax.lax.psum` between devices; the tiny camera solve is replicated; point
 updates stay local.  Per-point GN (no camera coupling) needs no
 collectives at all — sharding the batch axis is enough.
 
 The reconstruction sweeps (seed formation, bidirectional following,
-all-view expansion) are the TPU-native replacement of the reference's
+all-view expansion) are the JAX-native replacement of the reference's
 OpenMP loop over refpoints (reference:
 plg_matching_from_refpoints.cpp:89-95): the work-item axis (refpoints /
 seeds / 3D points) is sharded over the mesh, PLG tensors and grids are
@@ -71,7 +71,7 @@ def distributed_ba_step(mesh, state: ba_ops.BAState, obs_cam, obs_xy,
                 ba_ops.ba_schur_local(st, obs_cam, obs_xy, obs_mask,
                                       damping)
             # the only cross-device communication: psum of the per-view
-            # Hessian blocks, rhs, and residual stats over ICI
+            # Hessian blocks, rhs, and residual stats
             S = jax.lax.psum(S, SHARD_AXIS)
             rhs = jax.lax.psum(rhs, SHARD_AXIS)
             resid_sq = jax.lax.psum(resid_sq, SHARD_AXIS)
@@ -136,7 +136,7 @@ def sharded_start_sweep(mesh, plg_coords, grids, cell, obs_xy,
                         cap_dev: int):
     """Compacted kernel A with the refpoint axis sharded over the mesh.
 
-    TPU-native replacement of `#pragma omp for` over refpoints
+    JAX-native replacement of `#pragma omp for` over refpoints
     (reference: plg_matching_from_refpoints.cpp:89-95): each device
     detects + stream-compacts starting intersections for its contiguous
     refpoint block (cap_dev slots per device) against replicated

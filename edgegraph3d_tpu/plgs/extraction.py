@@ -1,6 +1,6 @@
 """Edge image -> 2D polyline graph extraction.
 
-TPU-native redesign of the reference's sequential pixel scans
+JAX-native redesign of the reference's sequential pixel scans
 (reference: src/edgegraph3d/io/input/convert_edge_images_pixel_to_segment.cpp):
 
   stage 1  corner-pixel cleanup      — vectorized stencil passes with

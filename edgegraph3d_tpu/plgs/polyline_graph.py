@@ -1,6 +1,6 @@
 """Polyline graphs as fixed-shape padded struct-of-arrays.
 
-TPU-native replacement for the reference's pointer-based
+JAX-native replacement for the reference's pointer-based
 `PolyLineGraph2D[HMapImpl]` (reference: include/edgegraph3d/plgs/
 polyline_graph_2d.hpp:82-449, src/edgegraph3d/plgs/polyline_graph_2d.cpp).
 A 2D PLG here is:

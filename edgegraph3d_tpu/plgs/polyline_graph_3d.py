@@ -1,6 +1,6 @@
 """3D polyline graphs: assembly, fragmentation, serialization.
 
-TPU-native replacement for the reference's `PolyLineGraph3D[HMapImpl]`
+JAX-native replacement for the reference's `PolyLineGraph3D[HMapImpl]`
 (reference: include/edgegraph3d/plgs/polyline_graph_3d.hpp:66-252,
 src/edgegraph3d/plgs/polyline_graph_3d.cpp, polyline_graph_3d_hmap_impl.cpp:47-193):
 same padded struct-of-arrays layout as the 2D graphs but with vec3

@@ -22,9 +22,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
-from PIL import Image
 
 from edgegraph3d_tpu.core.sfm import SfMData
+from edgegraph3d_tpu.io.png import write_png
 from edgegraph3d_tpu.plgs.polyline_graph import PLGStack
 
 _PALETTE = np.asarray([
@@ -691,7 +691,7 @@ def draw_and_write_focus_image(sfmd: SfMData, F_table: np.ndarray,
                                  stack=stack)
     path = os.path.join(
         folder, f"focus_{counter:06d}_p{refpoint}_s{starting_img}.png")
-    Image.fromarray(imgs[starting_img]).save(path)
+    write_png(path, imgs[starting_img])
     return path
 
 
@@ -712,8 +712,7 @@ def save_debug_images(sfmd: SfMData, folder: str,
 
     def save(prefix, imgs):
         for v, img in enumerate(imgs):
-            Image.fromarray(img).save(
-                os.path.join(folder, f"{prefix}_{v:04d}.png"))
+            write_png(os.path.join(folder, f"{prefix}_{v:04d}.png"), img)
 
     if stack is not None:
         save("plgs_imgs", draw_plgs(stack, W, H))
@@ -735,8 +734,8 @@ def save_debug_images(sfmd: SfMData, folder: str,
                 imgs = draw_match_set_epipolars(
                     np.asarray(F_table), stack, ms, W, H)
                 for v, img in enumerate(imgs):
-                    Image.fromarray(img).save(os.path.join(
-                        folder, f"pmsg_epi_{g:03d}_{v:04d}.png"))
+                    write_png(os.path.join(
+                        folder, f"pmsg_epi_{g:03d}_{v:04d}.png"), img)
     if groups_stage2 and stack is not None:
         save("pmctr", draw_match_sets(groups_stage2, stack, W, H))
     if manager is not None and stack is not None:
@@ -749,12 +748,12 @@ def save_debug_images(sfmd: SfMData, folder: str,
             imgs = draw_epipolar_process(sfmd, np.asarray(F_table), r,
                                          W, H, stack=stack)
             for v, img in enumerate(imgs):
-                Image.fromarray(img).save(os.path.join(
-                    folder, f"epipolar_{r:05d}_{v:04d}.png"))
+                write_png(os.path.join(
+                    folder, f"epipolar_{r:05d}_{v:04d}.png"), img)
     if ctx is not None and stack is not None:
         for r in epipolar_refpoints:
             imgs = draw_detection_process(sfmd, ctx, r, W, H,
                                           stack=stack)
             for v, img in enumerate(imgs):
-                Image.fromarray(img).save(os.path.join(
-                    folder, f"detection_{r:05d}_{v:04d}.png"))
+                write_png(os.path.join(
+                    folder, f"detection_{r:05d}_{v:04d}.png"), img)

@@ -1,5 +1,5 @@
 """Joint bundle adjustment as a pipeline stage (config.ba_steps /
-CLI --ba-steps): the flagship pod-level capability is reachable from
+CLI --ba-steps): the flagship multi-device capability is reachable from
 the product, and its benefit is measured.
 
 Generalizes the reference's per-point-only refinement

@@ -65,7 +65,7 @@ def test_louvain_recovers_planted_partition():
 
 
 def test_lp_with_merge_matches_louvain_modularity():
-    """The pod-scale fallback (LP + modularity merge) reaches
+    """The multi-device-scale fallback (LP + modularity merge) reaches
     Louvain's modularity on every planted seed (plain LP over-splits
     on some)."""
     rows = []

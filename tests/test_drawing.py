@@ -212,10 +212,10 @@ def test_save_debug_images_full_suite(tmp_path):
                    "pmsg_comm", "pmsg_epi"):
         assert any(n.startswith(prefix) for n in names), prefix
     # the claimed-interval overlay carries actual claims (red pixels)
-    from PIL import Image
+    from edgegraph3d_tpu.io.png import read_png
     ci = [n for n in sorted(names) if n.startswith("claimed_intervals")]
     reds = 0
     for n in ci:
-        img = np.asarray(Image.open(tmp_path / n))
+        img = read_png(str(tmp_path / n))
         reds += int(((img[..., 0] > 200) & (img[..., 1] < 100)).sum())
     assert reds > 0, "no claimed arcs rendered"

@@ -166,3 +166,25 @@ def test_two_process_distributed_cpu(tmp_path):
     assert r0["pipeline_points"] == single.n_points > sfmd2.n_points
     assert r0["pipeline_x_sum"] == pytest.approx(
         float(np.abs(single.points).sum()), rel=1e-5)
+
+
+def test_gather_to_host_imports_multihost_utils():
+    """gather_to_host on cross-process shards must import
+    jax.experimental.multihost_utils itself: `import jax` does not load
+    it, so a bare attribute access raises AttributeError.  A fresh
+    interpreter with a stand-in module checks the import path without
+    a second process."""
+    code = (
+        "import sys, types, numpy as np\n"
+        "fake = types.ModuleType('jax.experimental.multihost_utils')\n"
+        "fake.process_allgather = lambda a: np.asarray([7.0])\n"
+        "sys.modules['jax.experimental.multihost_utils'] = fake\n"
+        "from edgegraph3d_tpu.parallel.distributed import gather_to_host\n"
+        "class Shards:\n"
+        "    is_fully_addressable = False\n"
+        "print(gather_to_host(Shards()).tolist())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[7.0]"

@@ -5,13 +5,13 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
 
 from edgegraph3d_tpu.config import EdgeGraphConfig
 from edgegraph3d_tpu.core import sfm as sfm_io
 from edgegraph3d_tpu.core import synthetic
 from edgegraph3d_tpu.filtering.density import density_filter
 from edgegraph3d_tpu.filtering.outliers import filter_sfm_data
+from edgegraph3d_tpu.io.png import write_png
 from edgegraph3d_tpu.pipeline import PipelineStats, run_pipeline
 
 CFG = EdgeGraphConfig().replace(max_polylines_per_view=256,
@@ -68,7 +68,7 @@ def test_density_filter_matches_sequential_reference(rng):
 
 def test_density_round_path_matches_sequential(rng):
     """The round-based claim path (the formulation that parallelizes at
-    pod scale) must equal the exact sequential pass on the same
+    multi-device scale) must equal the exact sequential pass on the same
     workload — forced via `sequential_threshold=0` so the fast path
     cannot mask it (round-3 advisory: both prior tests exercised only
     the sequential branch)."""
@@ -134,8 +134,7 @@ def test_cli_end_to_end(scene, tmp_path):
     edges_dir.mkdir()
     imgs_dir.mkdir()
     for v in range(edge_imgs.shape[0]):
-        Image.fromarray(edge_imgs[v]).save(
-            edges_dir / f"synthetic_{v:04d}.png")
+        write_png(str(edges_dir / f"synthetic_{v:04d}.png"), edge_imgs[v])
     sfm_io.write_sfm_data(sfmd, str(tmp_path / "input.json"))
 
     from edgegraph3d_tpu.cli.edge_graph_3d import main

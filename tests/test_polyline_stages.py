@@ -126,59 +126,43 @@ def test_full_three_stage_pipeline(ctx_scene):
 
 
 def test_similarity_edges_device_matches_host(ctx_scene):
-    """The MXU-matmul similarity-edge kernel must reproduce the host
-    clique/Jaccard build: same edge set, weights within bf16-pass
-    noise (the kernel deliberately uses DEFAULT matmul precision)."""
-    import jax.numpy as jnp
-
-    from edgegraph3d_tpu.matching.refpoints import dense_observations
+    """The matmul similarity-edge kernel must reproduce the host
+    clique/Jaccard build: same edge set, weights within 2% (the kernel
+    deliberately uses DEFAULT matmul precision, TF32 on a GPU)."""
     sfmd, ctx, _ = ctx_scene
-    cfg = ctx.config
-    obs_xy, obs_mask = dense_observations(sfmd)
-    M = cfg.similarity_close_cap
-    cand = polyline_stages._close_polylines_cached(
-        sfmd, ctx, M, cfg.find_within_dist_px)
-    valid = np.asarray(cand.valid) & obs_mask[..., None]
-    pl = np.asarray(cand.pl_id)
-    N, V = obs_mask.shape
-    P_cnt = ctx.plg_coords.shape[1]
-    node = np.where(valid, np.arange(V)[None, :, None] * P_cnt + pl, -1)
-    n_close = valid.sum(axis=(1, 2)).astype(np.float64)
-    n_views = np.any(valid, axis=2).sum(axis=1).astype(np.float64)
-    w_ref = np.where(n_close > 0, n_views / np.maximum(n_close, 1), 0.0)
-    used = np.unique(node[valid])
-    U = len(used)
-    nn, vv, mm = np.nonzero(valid)
-    u_idx = np.searchsorted(used, node[nn, vv, mm])
-
-    e_h, w_h = polyline_stages._similarity_edges_host(
-        node, valid, w_ref, obs_mask, used, nn, vv, mm, u_idx, V, P_cnt)
-
-    from edgegraph3d_tpu.ops.compaction import to_host
-    N_pad = 1 << max(N - 1, 1).bit_length()
-    U_cap = max(1024, 1 << max(U - 1, 1).bit_length())
-    nnz = len(nn)
-    nnz_cap = 1 << max(nnz - 1, 1).bit_length()
-    E_cap = 1 << 16
-    w_ref_p = np.zeros(N_pad, np.float32)
-    w_ref_p[:N] = w_ref
-    obs_f = np.zeros((N_pad, V), np.float32)
-    obs_f[:N] = obs_mask
-    view_of_u = np.zeros(U_cap, np.int32)
-    view_of_u[:U] = (used // P_cnt).astype(np.int32)
-    buf, n_e = polyline_stages._similarity_edges_device(
-        jnp.asarray(np.pad(nn.astype(np.int32), (0, nnz_cap - nnz))),
-        jnp.asarray(np.pad(u_idx.astype(np.int32), (0, nnz_cap - nnz))),
-        jnp.asarray(np.arange(nnz_cap) < nnz),
-        jnp.asarray(w_ref_p), jnp.asarray(obs_f),
-        jnp.asarray(view_of_u), N_pad, U_cap, E_cap)
-    rows, n_int = to_host(buf, n_e)
-    assert n_int <= E_cap
-    e_d = rows[:, 0:2].astype(np.int64)
-    w_d = rows[:, 2]
+    inp = polyline_stages.similarity_inputs(sfmd, ctx)
+    e_h, w_h = polyline_stages._similarity_edges_host(**inp)
+    e_d, w_d = polyline_stages.similarity_edges_device(inp, E_cap=1 << 16)
 
     key_h = {(int(a), int(b)): w for (a, b), w in zip(e_h, w_h)}
     key_d = {(int(a), int(b)): w for (a, b), w in zip(e_d, w_d)}
     assert set(key_h) == set(key_d)
     for k in key_h:
         assert abs(key_h[k] - key_d[k]) < 0.02 * max(key_h[k], 1e-6), k
+
+
+def test_similarity_edges_device_overflow_returns_none(ctx_scene):
+    """More edges than E_cap: the wrapper reports overflow (None) so
+    similarity_match_sets falls back to the host build."""
+    sfmd, ctx, _ = ctx_scene
+    inp = polyline_stages.similarity_inputs(sfmd, ctx)
+    e_h, _ = polyline_stages._similarity_edges_host(**inp)
+    assert len(e_h) > 4
+    assert polyline_stages.similarity_edges_device(inp, E_cap=4) is None
+
+
+@pytest.mark.gpu
+def test_similarity_edges_device_matches_host_full_width_gpu(gpu_device):
+    """The same comparison on the card at the reference scale (49 views
+    at 1600x1200, 6,268 refpoints; U ~ 12k nodes), where the kernel's
+    Precision.DEFAULT products run in TF32 (chip_smoke.py phase d)."""
+    import jax
+
+    import chip_smoke
+
+    with jax.default_device(gpu_device):
+        sfmd, edge_imgs, _ = chip_smoke.full_scene()
+        r = chip_smoke.compare_similarity(
+            chip_smoke.stage1_inputs(sfmd, edge_imgs))
+    assert r["same_edges"]
+    assert r["max_rel_err"] < 0.02

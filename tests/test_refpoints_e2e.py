@@ -216,3 +216,36 @@ def test_fused_path_matches_two_phase():
         assert a.shape == b.shape
         np.testing.assert_allclose(a, b, atol=1e-6)
     assert man1.counters == man2.counters
+
+
+@pytest.mark.parametrize("seed_chunk", [16, 32])
+def test_sweep_order_independent_of_seed_chunk(seed_chunk):
+    """The sweep emits points seed by seed in chain order, a fixed
+    order whatever the seed chunk width: the
+    density filter downstream is first-come, so the order is part of
+    the result, and the chunk widths differ by backend and between the
+    single-device and mesh drivers."""
+    from edgegraph3d_tpu.matching import matches as mm
+
+    cfg = EdgeGraphConfig().replace(max_polylines_per_view=256,
+                                    max_polyline_len=128,
+                                    max_follow_steps=64)
+    sfmd, edge_imgs, _ = synthetic.make_scene(
+        n_cams=8, n_refpoints_per_curve=12,
+        width=320, height_px=240, focal=400.0, seed=3)
+    stack = extraction.extract_plgs(edge_imgs, cfg)
+    ctx = refpoints.build_context(sfmd, stack, cfg, cell=10.0)
+    seeds_np, seed_ref = refpoints.compute_seeds(
+        sfmd, ctx, 64, max_starting_views=2)
+    assert len(seed_ref) > 2 * seed_chunk
+    out = []
+    for chunk in (seed_chunk, 1 << 12):
+        man = mm.MatchesManager(np.asarray(ctx.plg_length))
+        out.append(refpoints.sweep_seeds(seeds_np, seed_ref, ctx, man,
+                                         chunk))
+    seed, order = out[0][4], out[0][5]
+    assert (np.diff(seed) >= 0).all()
+    same_seed = np.diff(seed) == 0
+    assert (np.diff(order)[same_seed] > 0).all()
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)

@@ -3,7 +3,7 @@
 The mesh shards the work-item axis of every sweep (refpoints, seeds,
 3D points) while PLG tensors stay replicated (parallel/sharded.py); the
 result must be bit-identical in structure to the single-device run —
-the TPU-native determinism guarantee replacing the reference's
+the JAX-native determinism guarantee replacing the reference's
 lock-ordered OpenMP loop (reference: plg_matching_from_refpoints.cpp:89,
 plg_matches_manager.cpp:42).
 """
@@ -66,3 +66,22 @@ def test_sharded_uneven_mesh():
     ctx = refpoints_mod.build_context(sfmd, stack, CFG, mesh=m)
     pts = refpoints_mod.reconstruct_from_refpoints(sfmd, ctx)
     assert len(pts.X) > 0
+
+
+def test_sharded_gn_overflow_redo_matches_single_device(monkeypatch):
+    """A compacted-GN overflow is redone at the exact full width on the
+    mesh as on one device.  The fast-path width is forced down to 8 rows
+    so every chunk overflows; without the redo the mesh would keep the
+    truncated refinement and its chains would differ."""
+    from edgegraph3d_tpu.matching import following
+    monkeypatch.setattr(following, "_default_gn_cap", lambda S, T: 8)
+    cfg = CFG.replace(max_follow_steps=31)   # a fresh trace of the walk
+    sfmd, edge_imgs, _ = _scene()
+    stack = extract_plgs(edge_imgs, cfg)
+    ctx1 = refpoints_mod.build_context(sfmd, stack, cfg)
+    pts1 = refpoints_mod.reconstruct_from_refpoints(sfmd, ctx1)
+    ctx4 = refpoints_mod.build_context(sfmd, stack, cfg,
+                                       mesh=mesh_mod.make_mesh(4))
+    pts4 = refpoints_mod.reconstruct_from_refpoints(sfmd, ctx4)
+    assert len(pts1.X) == len(pts4.X) > 0
+    np.testing.assert_allclose(pts1.X, pts4.X, rtol=0, atol=1e-5)

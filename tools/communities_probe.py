@@ -1,7 +1,7 @@
 """Round-5 probe: per-method community-detection cost on the
 full-scale similarity graph (U ~12.3k nodes, ~3M edges).
 
-Usage: python tools/communities_probe.py [--tpu]
+Usage: python tools/communities_probe.py [--gpu]   (CPU unless --gpu)
 """
 
 from __future__ import annotations
@@ -15,10 +15,12 @@ sys.path.insert(0, ".")
 
 
 def main():
+    import os
+    if "--gpu" not in sys.argv:
+        os.environ["JAX_PLATFORMS"] = "cpu"
+    from edgegraph3d_tpu import runtime
+    runtime.cli_start()
     import jax
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
 
     from bench import build_full_workload
     from edgegraph3d_tpu.config import EdgeGraphConfig

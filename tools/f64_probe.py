@@ -5,7 +5,7 @@ the accepted point/observation sets to an npz.  Run twice (once with
 --x64) and diff — tests/test_f64_parity.py does exactly that and
 quantifies the drift.  The reference mixes f64 GN during matching
 (reference: src/edgegraph3d/utils/geometry/triangulation.cpp:105-176)
-with f32 GN in the filter (filtering/gauss_newton.cpp); the TPU engine
+with f32 GN in the filter (filtering/gauss_newton.cpp); this engine
 runs f32 everywhere, so the acceptance gates must be demonstrably
 fp-robust.
 

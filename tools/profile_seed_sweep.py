@@ -10,10 +10,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-cache = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from edgegraph3d_tpu import runtime
+
+runtime.cli_start()
 
 from functools import partial
 

@@ -26,16 +26,16 @@ REPO = os.path.dirname(HERE)
 
 
 def worker(n_dev: int) -> None:
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, REPO)
+    from edgegraph3d_tpu import runtime
+    runtime.cli_start()
     import time
 
+    import jax
     import jax.numpy as jnp
     import numpy as np
 
-    sys.path.insert(0, REPO)
     from edgegraph3d_tpu.config import EdgeGraphConfig
     from edgegraph3d_tpu.core import synthetic
     from edgegraph3d_tpu.matching import refpoints

@@ -20,10 +20,12 @@ sys.path.insert(0, ".")
 
 
 def main():
+    import os
+    if "--gpu" not in sys.argv:
+        os.environ["JAX_PLATFORMS"] = "cpu"
+    from edgegraph3d_tpu import runtime
+    runtime.cli_start()
     import jax
-    if "--tpu" not in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
     import jax.numpy as jnp
 
     from bench import build_full_workload

@@ -1,13 +1,12 @@
 """Round-5 probe: where does a stage-3 chunk's device time go?
 
-Times, on the real chip at the full-scale chunk geometry (Sb = 65536
+Times, on the card at the full-scale chunk geometry (Sb = 65536
 follow lanes, T = 128 steps, V = 49, P = 8192, L = 64):
 
   1. the post-walk batched GN at full [Sb*T] width vs compacted widths
      (the GN runs on every recorded step slot; measured fill is <1%)
   2. the walk while_loop itself, nested [V,P,L,2] vs packed [V*P,2L]
-     coordinate layout (PROFILE.md layout probe says 1.35x on raw
-     gathers; this measures it inside the real walk structure)
+     coordinate layout, inside the real walk structure
   3. the 12-config direction resolve
 
 Usage: python tools/walk_probe.py [--lanes 65536] [--steps 128]
@@ -42,9 +41,9 @@ def main():
     ap.add_argument("--views", type=int, default=49)
     args = ap.parse_args()
 
+    from edgegraph3d_tpu import runtime
+    runtime.cli_start()
     import jax
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
 
     from edgegraph3d_tpu.config import EdgeGraphConfig
@@ -76,10 +75,9 @@ def main():
               + rng.normal(0, 0.5, (width, 3, 2))).astype(np.float32)
         return jnp.asarray(cams), jnp.asarray(xy)
 
-    # LEARNING (probe v1/v2 OOM): a gathered [N,3,4] f32 on TPU tiles
-    # to T(4,128) = 43x padding -> 51 GB at N=8.4M.  Gather camera
-    # matrices in TRANSPOSED [3,4,N] layout (batch axis last) so the
-    # tile padding is on dims of size 3/4 only.
+    # Gather camera matrices in TRANSPOSED [3,4,N] layout (batch axis
+    # last): a materialized gathered [N,3,4] keeps tiny minor dims that
+    # a tiled memory layout pads heavily.
     P_t = jnp.moveaxis(P_mats, 0, -1)                 # [3,4,V]
 
     def gn_full(cams, xyj):
